@@ -4,7 +4,7 @@
  * The reference library's runtime is a JVM stream stack; this framework's
  * host runtime is this small C core, driven from Python via ctypes with
  * the GIL released, so independent gzip members decode/encode on all host
- * cores while the TPU handles the batched kernel paths.
+ * cores while the accelerator handles the batched kernel paths.
  *
  * Contents:
  *   - td_crc32 / td_adler32: slice-by-8 CRC-32, blocked Adler-32
@@ -14,7 +14,7 @@
  *   - td_deflate_member: one-shot encoder for a 64 KiB member payload
  *     (hash-chain lazy matcher, optimal-with-repair Huffman lengths
  *     capped at a configurable code length, canonical codes, clen RLE) —
- *     single final DEFLATE block, matching the TPU stream profile.
+ *     single final DEFLATE block, matching the TD stream profile.
  *
  * Behavioral contracts mirror the reference decoder semantics
  * (/root/reference/src/io/nayuki/deflate/decomp/Open.java): degenerate
@@ -479,7 +479,7 @@ int td_inflate(const uint8_t *in, size_t in_len, uint8_t *out, size_t out_cap,
 
 /* ------------------------------------------------------------------ */
 /* Token resolve: expand a device-decoded token stream to bytes        */
-/* (phase 2 of the TPU decoder: LZ77 expansion is memcpy-bound host    */
+/* (phase 2 of the device decoder: LZ77 expansion is memcpy-bound host */
 /* work; tokens are literal byte, or bit26 | run<<16 | (dist-1)).      */
 /* ------------------------------------------------------------------ */
 

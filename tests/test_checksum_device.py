@@ -1,7 +1,7 @@
 """Device checksum kernels (SURVEY.md §2.4: CRC-32/Adler-32 built from
-scratch, JAX/MXU form) — differential against zlib, plus the batched
-member-CRC path of the device encoder (`encode_jax._assemble_members`
-with TPU_DEFLATE_DEVICE_CRC=1, the directly-attached-TPU configuration).
+scratch as bit-matrix products) — differential against zlib, plus the
+batched member-CRC path of the device encoder
+(`encode_jax._assemble_members` with TPU_DEFLATE_DEVICE_CRC=1).
 """
 
 import zlib
@@ -41,7 +41,7 @@ def test_crc32_members_ragged():
 
 
 def test_device_encoder_member_crcs(monkeypatch):
-    """The TPU encoder's assemble stage with batched device CRCs enabled
+    """The device encoder's assemble stage with batched device CRCs enabled
     must emit byte-identical gzip (CRC fields included) to the host-CRC
     path, and round-trip through an independent decoder."""
     import gzip as sysgzip
@@ -59,3 +59,18 @@ def test_device_encoder_member_crcs(monkeypatch):
     gz_host = compress_members_tpu(data)
     assert gz_dev == gz_host
     assert sysgzip.GzipFile(fileobj=io.BytesIO(gz_dev)).read() == data
+
+
+def test_device_encoder_crc_failure_propagates(monkeypatch):
+    """A device CRC that was asked for and fails raises; it is never
+    quietly recomputed on the host."""
+    from tpu_deflate.codec.encode_jax import compress_members_tpu
+    from tpu_deflate.kernels import checksum_jax
+
+    def broken(*_a, **_k):
+        raise RuntimeError("device CRC failed")
+
+    monkeypatch.setattr(checksum_jax, "crc32_members", broken)
+    monkeypatch.setenv("TPU_DEFLATE_DEVICE_CRC", "1")
+    with pytest.raises(RuntimeError, match="device CRC failed"):
+        compress_members_tpu(b"abc" * 1000)

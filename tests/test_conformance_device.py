@@ -41,28 +41,30 @@ def test_batched_error_isolation():
     payloads += [bits_to_bytes(b, "0") for _, b, _ in BAD_VECTORS]
     states = decode_deflate_streams_v2(payloads)
     for (name, _, hexout), st in zip(GOOD_VECTORS, states):
-        assert _resolve_lane(st, None) == bytes.fromhex(hexout), name
+        assert _resolve_lane(st) == bytes.fromhex(hexout), name
     for (name, _, reason), st in zip(BAD_VECTORS, states[len(GOOD_VECTORS) :]):
         with pytest.raises(DataFormatError) as ei:
-            _resolve_lane(st, None)
+            _resolve_lane(st)
         assert ei.value.reason == reason, name
 
 
 def test_batched_vectors_pallas_interpret(monkeypatch):
-    """All 42 vectors through the *pallas* wave runner explicitly (Mosaic
-    interpret mode on CPU): good vectors bit-exact, bad vectors carrying
-    the exact Reason — the same taxonomy net the XLA twin passes."""
+    """All 42 vectors through the wave runner with the single-level
+    compaction fallback (the path a compaction overflow reruns on): good
+    vectors bit-exact, bad vectors carrying the exact Reason — the same
+    taxonomy net the two-level compaction passes."""
     from tpu_deflate.codec import decode_jax_v2 as v2
 
-    monkeypatch.setattr(v2, "_use_pallas", lambda: True)
+    run = v2._run_wave
+    monkeypatch.setattr(v2, "_run_wave", lambda w, full_compact=False: run(w, full_compact=True))
     payloads = [bits_to_bytes(b, "1") for _, b, _ in GOOD_VECTORS]
     payloads += [bits_to_bytes(b, "0") for _, b, _ in BAD_VECTORS]
     states = v2.decode_deflate_streams_v2(payloads)
     for (name, _, hexout), st in zip(GOOD_VECTORS, states):
-        assert v2._resolve_lane(st, None) == bytes.fromhex(hexout), name
+        assert v2._resolve_lane(st) == bytes.fromhex(hexout), name
     for (name, _, reason), st in zip(BAD_VECTORS, states[len(GOOD_VECTORS) :]):
         with pytest.raises(DataFormatError) as ei:
-            v2._resolve_lane(st, None)
+            v2._resolve_lane(st)
         assert ei.value.reason == reason, name
 
 
@@ -72,7 +74,7 @@ def test_good_vectors_full_device_resolve():
     forced-device-resolve route for arbitrary foreign streams."""
     import numpy as np
 
-    from tpu_deflate.codec import resolve_pallas as rp
+    from tpu_deflate.codec import resolve_jax as rp
     from tpu_deflate.codec.decode_jax_v2 import decode_deflate_streams_v2
 
     payloads, expected = [], []
@@ -98,7 +100,7 @@ def test_big_member_device_resolve_roundtrip():
         LAST_DECODE_STATS,
         gzip_decompress_tpu_v2,
     )
-    from tpu_deflate.codec import resolve_pallas as rp
+    from tpu_deflate.codec import resolve_jax as rp
 
     rng = np.random.default_rng(11)
     words = [

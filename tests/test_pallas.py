@@ -1,8 +1,11 @@
-"""Pallas kernel correctness (interpret mode on CPU; compiled on TPU).
+"""Decode cursor stages and the whole wave against plain references.
 
-Differential tests: the pallas cursor kernels against a direct NumPy
-reference of the same tile-transfer semantics, and the full pallas wave
-pipeline against the XLA wave on real profile streams.
+Differential tests: stage B's tile transfer maps, stage C's composed
+entries and stage D/E's replay (the ``lax.scan`` walks in
+``decode_jax_v2``) against direct NumPy walks of the same semantics, and
+the whole wave pipeline against the host inflater on real profile
+streams. The same stages compiled for the card are checked by
+tests/test_gpu_kernels.py and chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -14,7 +17,9 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from tpu_deflate.codec import decode_jax_v2 as v2  # noqa: E402
-from tpu_deflate.codec import decode_pallas as dp  # noqa: E402
+
+W = v2.W_TILE
+E_WIN = v2.ENTRY_WIN
 
 
 def _random_delta(rng, L, B):
@@ -31,11 +36,11 @@ def _ref_transfers(delta, W):
     """NumPy reference: per-tile transfer maps (exit offset/127/255)."""
     L, B = delta.shape
     NT = B // W
-    out = np.zeros((L, NT, dp.E_WIN), np.uint8)
+    out = np.zeros((L, NT, E_WIN), np.uint8)
     for lane in range(L):
         for t in range(NT):
             base = t * W
-            for e in range(dp.E_WIN):
+            for e in range(E_WIN):
                 p = e
                 while p < W:
                     d = delta[lane, base + p]
@@ -59,7 +64,7 @@ def _ref_replay(delta, entries, W):
     for lane in range(L):
         for t in range(NT):
             e = int(entries[lane, t])
-            if e >= dp.E_WIN:
+            if e >= E_WIN:
                 continue
             p = e
             while p < W:
@@ -71,10 +76,25 @@ def _ref_replay(delta, entries, W):
     return reached
 
 
+def _ref_entries(transfers, entry0):
+    """NumPy reference: serial composition of the transfer maps."""
+    L, NT, _ = transfers.shape
+    entries = np.zeros((L, NT), np.uint8)
+    final = np.zeros(L, np.uint8)
+    for lane in range(L):
+        e = int(entry0[lane])
+        for t in range(NT):
+            entries[lane, t] = e
+            if e < v2.SENT_EOB:
+                e = int(transfers[lane, t, e])
+        final[lane] = e
+    return entries, final
+
+
 @pytest.fixture(scope="module")
 def small_wave():
     rng = np.random.default_rng(7)
-    L, B = 2, dp.W_P * dp.CT  # minimal grid: NT == CT
+    L, B = 2, W * 16
     delta = _random_delta(rng, L, B)
     token = rng.integers(0, 256, (L, B)).astype(np.int32)
     # matches at ~1/3 of positions
@@ -87,199 +107,135 @@ def small_wave():
     return delta, token
 
 
-def _to_tiles(a, W):
+def _tiles(a):
     L, B = a.shape
-    NT = B // W
-    return jnp.asarray(a.astype(np.int32)).reshape(L, NT, W).transpose(0, 2, 1)
+    return jnp.asarray(a).reshape(L, B // W, W)
 
 
 def test_stage_b_pallas_matches_reference(small_wave):
     delta, _token = small_wave
-    dt = _to_tiles(delta, dp.W_P)
-    got = np.asarray(dp.stage_b_pallas(dt))
-    want = _ref_transfers(delta, dp.W_P)
-    np.testing.assert_array_equal(got, want)
+    got = np.asarray(v2.stage_b_transfers(_tiles(delta)))
+    np.testing.assert_array_equal(got, _ref_transfers(delta, W))
+
+
+def test_stage_c_entries_match_serial_chain(small_wave):
+    delta, _token = small_wave
+    transfers = _ref_transfers(delta, W)
+    entry0 = np.array([0, 5], np.uint8)
+    entries, final = v2.stage_c_entries(jnp.asarray(transfers), jnp.asarray(entry0))
+    want_entries, want_final = _ref_entries(transfers, entry0)
+    np.testing.assert_array_equal(np.asarray(entries), want_entries)
+    np.testing.assert_array_equal(np.asarray(final), want_final)
 
 
 def test_stage_dc_pallas_matches_reference(small_wave):
+    """Stage D's replay from given entries, and stage E's terminal facts
+    as masked sums over the reached positions."""
     delta, token = small_wave
     L, B = delta.shape
-    NT = B // dp.W_P
+    NT = B // W
     rng = np.random.default_rng(11)
-    entries = rng.integers(0, dp.E_WIN, (L, NT)).astype(np.int32)
+    entries = rng.integers(0, E_WIN, (L, NT)).astype(np.uint8)
     entries[:, 1::5] = 127  # some dead tiles
-    dt = _to_tiles(delta, dp.W_P)
-    tt = _to_tiles(token, dp.W_P)
-    tokc, summ = dp.stage_dc_pallas(dt, tt, jnp.asarray(entries))
-    tokc, summ = np.asarray(tokc), np.asarray(summ)
+    reached = np.asarray(v2.stage_d_reached(_tiles(delta), jnp.asarray(entries))).reshape(L, B)
+    want = _ref_replay(delta, entries, W)
+    np.testing.assert_array_equal(reached, want)
 
-    reached = _ref_replay(delta, entries, dp.W_P)
-    valid = reached & (delta < 127)
-    pos_in_tile = np.arange(B) % dp.W_P
+    has_eob, eob_exit, err_code, out_total = (
+        np.asarray(x)
+        for x in v2.stage_e_summary(jnp.asarray(delta), jnp.asarray(token), jnp.asarray(want))
+    )
+    pos = np.arange(B)
     for lane in range(L):
-        for t in range(NT):
-            sl = slice(t * dp.W_P, (t + 1) * dp.W_P)
-            v = valid[lane, sl]
-            count = int(v.sum())
-            assert summ[lane, dp.ROW_COUNT, t] == count
-            want_toks = token[lane, sl][v]
-            k = min(count, dp.K1)
-            np.testing.assert_array_equal(tokc[lane, t, :k], want_toks[:k])
-            assert (tokc[lane, t, count:] == -1).all() or count > dp.K1
-            eob = reached[lane, sl] & (delta[lane, sl] == 127)
-            assert summ[lane, dp.ROW_EOB_HIT, t] == int(eob.sum())
-            if eob.any():
-                assert summ[lane, dp.ROW_EOB_POS, t] == int(pos_in_tile[sl][eob][0])
-                assert summ[lane, dp.ROW_EOB_TOK, t] == int(token[lane, sl][eob][0])
-            err = reached[lane, sl] & (delta[lane, sl] == 255)
-            assert summ[lane, dp.ROW_ERR_HIT, t] == int(err.sum())
-            toks = token[lane, sl][v]
-            sizes = np.where(toks < 256, 1, (toks >> 16) & 0x3FF)
-            sizes = np.where(toks >= 0, sizes, 0)
-            # valid excludes EOB/ERR so toks >= 0 always
-            assert summ[lane, dp.ROW_SIZE_SUM, t] == int(sizes.sum())
+        eob = want[lane] & (delta[lane] == 127)
+        err = want[lane] & (delta[lane] == 255)
+        valid = want[lane] & (delta[lane] < 127)
+        tok = token[lane]
+        assert bool(has_eob[lane]) == bool(eob.any())
+        assert eob_exit[lane] == int((pos[eob] - tok[eob] - 1).sum())
+        assert err_code[lane] == int((-tok[err] - 100).sum())
+        sizes = np.where(tok[valid] < 256, 1, (tok[valid] >> 16) & 0x3FF)
+        assert out_total[lane] == int(sizes.sum())
+
+
+def _profile_payloads(seed: int, n: int, garbage: bool):
+    from tpu_deflate.codec import decode_jax as dj
+    from tpu_deflate.codec.profile import profile_compress_host
+
+    rng = np.random.default_rng(seed)
+    words = [rng.integers(97, 123, rng.integers(2, 9), dtype=np.uint8) for _ in range(50)]
+    data = np.concatenate([words[i] for i in rng.integers(0, 50, 40000)]).tobytes()[:n]
+    buf = np.frombuffer(profile_compress_host(data), dtype=np.uint8)
+    payloads = [buf[m.payload_start : m.end - 8].tobytes() for m in dj.split_members(buf)]
+    if garbage:
+        # random bytes behind a valid header: invalid codes and every
+        # error-classification branch at most positions
+        payloads.append(payloads[0][:64] + rng.integers(0, 256, 4000, dtype=np.uint8).tobytes())
+    return payloads
+
+
+def _check_wave(payloads):
+    """Every lane of one wave against the host inflater: clean lanes
+    resolve to its bytes with the exact size, failing lanes carry the
+    Reason it raises. A copy from before the stream start is found at
+    resolve, after the wave, so there the wave reports the first decode
+    error of the lane instead."""
+    from tpu_deflate.codec import resolve_jax as rp
+    from tpu_deflate.codec.inflate_host import inflate
+    from tpu_deflate.format.errors import DataFormatError, Reason, reason_to_code
+
+    w = v2._prep_wave(payloads, 4)
+    tokens, counts, has_eob, _exit, err_code, out_total, overflow = (
+        np.asarray(x) for x in v2._run_wave(w)
+    )
+    assert not overflow
+    errors = 0
+    for lane, p in enumerate(payloads):
+        try:
+            want = inflate(p)
+        except DataFormatError as e:
+            if e.reason == Reason.COPY_FROM_BEFORE_DICTIONARY_START:
+                assert err_code[lane] != 0, lane
+            else:
+                assert err_code[lane] == reason_to_code(e.reason), lane
+            errors += 1
+            continue
+        assert err_code[lane] == 0 and has_eob[lane], lane
+        assert out_total[lane] == len(want), lane
+        assert rp.resolve_reference(tokens[lane, : int(counts[lane])]) == want, lane
+    return errors
 
 
 def test_pallas_wave_matches_xla_wave():
-    """Full pipeline differential on real profile streams."""
-    from tpu_deflate.codec.profile import profile_compress_host
-
-    rng = np.random.default_rng(3)
-    words = [rng.integers(97, 123, rng.integers(2, 9), dtype=np.uint8) for _ in range(50)]
-    data = np.concatenate([words[i] for i in rng.integers(0, 50, 40000)]).tobytes()[:150000]
-    gz = profile_compress_host(data)
-    from tpu_deflate.codec import decode_jax as dj
-
-    buf = np.frombuffer(gz, dtype=np.uint8)
-    members = dj.split_members(buf)
-    payloads = [buf[m.payload_start : m.end - 8].tobytes() for m in members]
-    w = v2._prep_wave(payloads, 4, buckets=dp.P_BUCKETS_PALLAS)
-
-    ref = [np.asarray(x) for x in v2._run_wave_unfused(w)]
-    got = [np.asarray(x) for x in v2._run_wave_pallas(w)]
-    # (tokens, counts, has_eob, eob_exit, err_code, out_total, overflow)
-    np.testing.assert_array_equal(got[1], ref[1])
-    np.testing.assert_array_equal(got[2], ref[2])
-    np.testing.assert_array_equal(got[3], ref[3])
-    np.testing.assert_array_equal(got[4], ref[4])
-    np.testing.assert_array_equal(got[5], ref[5])
-    assert not bool(got[6])
-    for i in range(len(payloads)):
-        n = int(ref[1][i])
-        np.testing.assert_array_equal(got[0][i, :n], ref[0][i, :n])
+    """Full wave on real profile streams."""
+    assert _check_wave(_profile_payloads(3, 150000, False)) == 0
 
 
-def test_stage_a_pallas_matches_xla():
-    """Fused stage-A kernel vs the XLA twin: real streams + garbage tails
-    (invalid codes, truncation classification) must agree bit-for-bit."""
-    from tpu_deflate.codec.profile import profile_compress_host
-
-    rng = np.random.default_rng(13)
-    words = [rng.integers(97, 123, rng.integers(2, 9), dtype=np.uint8) for _ in range(40)]
-    data = np.concatenate([words[i] for i in rng.integers(0, 40, 30000)]).tobytes()[:100000]
-    gz = profile_compress_host(data)
-    from tpu_deflate.codec import decode_jax as dj
-
-    buf = np.frombuffer(gz, dtype=np.uint8)
-    members = dj.split_members(buf)
-    payloads = [buf[m.payload_start : m.end - 8].tobytes() for m in members]
-    # garbage lane: random bytes behind a valid header (stresses invalid
-    # codes and every error-classification branch at most positions)
-    payloads.append(payloads[0][:64] + rng.integers(0, 256, 4000, dtype=np.uint8).tobytes())
-    w = v2._prep_wave(payloads, 4, buckets=dp.P_BUCKETS_PALLAS)
-
-    want_d, want_t = v2._stage_a_wave(w)
-    got_d, got_t = dp.stage_a_pallas(jnp.asarray(w["grid"]), dp.build_meta(w))
-    np.testing.assert_array_equal(np.asarray(got_d), np.asarray(want_d))
-    np.testing.assert_array_equal(np.asarray(got_t), np.asarray(want_t))
-
-
-def test_compact_flat_matches_xla():
-    """VMEM whole-lane compaction + fused rank->byte map vs the XLA
-    displacement-move twin + one-hot MXU map."""
-    rng = np.random.default_rng(3)
-    for L, M, density in [(4, 512, 0.3), (3, 2048, 0.05), (2, 128, 1.0), (2, 256, 0.0)]:
-        tok = rng.integers(0, 1 << 20, (L, M)).astype(np.int32)
-        tok[rng.random((L, M)) >= density] = -1
-        # sprinkle literal-rank tokens (< 256) among the match-coded ones
-        lit_mask = (rng.random((L, M)) < 0.4) & (tok >= 0)
-        tok[lit_mask] = rng.integers(0, 256, int(lit_mask.sum()))
-        lit_map = rng.integers(0, 256, (L, 256), dtype=np.uint8)
-        # reuse the plane/table builders via a fake class-table pass
-        j32 = np.arange(32)[None, None, :]
-        lm = lit_map.reshape(L, 8, 32).astype(np.int64)
-        planes = np.zeros((L, 8, 8), np.int64)
-        for b in range(8):
-            planes[:, b, :] = (((lm >> b) & 1) << j32).sum(axis=2)
-        lit_planes = planes.reshape(L, 64).astype(np.int32)
-        grid = lit_map.reshape(L, 4, 64).transpose(0, 2, 1)
-        lit_map8 = np.concatenate(
-            [(grid & 127).astype(np.int8), (grid >> 7).astype(np.int8)], axis=2
-        )
-        got = np.asarray(
-            dp.compact_flat_pallas(
-                jnp.asarray(tok), jnp.asarray(lit_planes), interpret=True
-            )
-        )
-        want = np.asarray(
-            v2.apply_lit_map(
-                v2.compact_level2(jnp.asarray(tok)), jnp.asarray(lit_map8)
-            )
-        )
-        np.testing.assert_array_equal(got, want)
+def test_pallas_wave_matches_xla_wave_garbage_lane():
+    """The same with a garbage lane: invalid codes and every stage-A
+    error class reach the cursor walks."""
+    assert _check_wave(_profile_payloads(13, 100000, True)) == 1
 
 
 def test_parse_pallas_matches_serial():
-    """Tile-transfer parse (VMEM kernels interpret mode + host chain
-    walk) vs a direct serial walk on random step fields."""
-    from tpu_deflate.codec import parse_pallas as pp
-
-    rng = np.random.default_rng(11)
-    L, S = 2, 512 * 128
-    step = rng.integers(1, pp.PARSE_MAX_STEP + 1, (L, S)).astype(np.int32)
-    step[rng.random((L, S)) < 0.7] = 1  # literal-heavy
-    tiles = pp.step_tiles(jnp.asarray(step))
-    transfers = np.asarray(pp.parse_transfers(tiles, interpret=True))
-    entries = pp.host_entries(transfers)
-    got = np.asarray(pp.parse_replay(tiles, jnp.asarray(entries), interpret=True))
-
-    want = np.zeros((L, S), bool)
-    for l in range(L):
-        p = 0
-        while p < S:
-            want[l, p] = True
-            p += int(step[l, p])
-    np.testing.assert_array_equal(got, want)
-
-
-def test_analyze_two_phase_matches_single():
-    """analyze_phase1 + host entries + analyze_phase2 (the device encode
-    pipeline) must reproduce analyze_device's XLA parse exactly."""
+    """The analyze kernel's pointer-doubling parse against a direct
+    serial walk of next[i] = i + step[i] over the same match steps."""
     from tpu_deflate.codec import encode_jax as ej
-    from tpu_deflate.codec import parse_pallas as pp
 
     rng = np.random.default_rng(5)
     words = [rng.integers(97, 123, rng.integers(2, 10), dtype=np.uint8) for _ in range(60)]
     data = np.concatenate([words[i] for i in rng.integers(0, 60, 30000)])[: 2 * 65536]
-    padded = np.frombuffer(data.tobytes(), np.uint8).reshape(2, 65536)
-    lengths = np.array([65536, 50000], np.int32)
+    padded = jnp.asarray(np.frombuffer(data.tobytes(), np.uint8).reshape(2, 65536))
+    lengths = jnp.asarray(np.array([65536, 50000], np.int32))
 
-    want = ej.analyze_device(jnp.asarray(padded), jnp.asarray(lengths), True)
-    # interpret-mode kernels stand in for the real chip
-    orig_td = pp.parse_transfers
-    orig_rp = pp.parse_replay
-    pp_int = lambda f: (lambda *a, **k: f(*a, interpret=True, **k))
-    pp.parse_transfers = pp_int(orig_td)
-    pp.parse_replay = pp_int(orig_rp)
-    try:
-        p1 = ej.analyze_phase1.__wrapped__(jnp.asarray(padded), jnp.asarray(lengths), True)
-        entries = pp.host_entries(np.asarray(p1["transfers"]))
-        got = ej.analyze_phase2.__wrapped__(
-            jnp.asarray(padded), p1["use"], p1["dist"], p1["tiles"], p1["valid"],
-            jnp.asarray(entries),
-        )
-    finally:
-        pp.parse_transfers = orig_td
-        pp.parse_replay = orig_rp
-    for k in want:
-        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]), err_msg=k)
+    a = ej.analyze_device(padded, lengths, True)
+    _use, _dist, step, valid = ej._match_find(padded, lengths, True)
+    step, valid = np.asarray(step), np.asarray(valid)
+    want = np.zeros(step.shape, bool)
+    for lane in range(step.shape[0]):
+        p = 0
+        while p < step.shape[1]:
+            want[lane, p] = True
+            p += int(step[lane, p])
+    np.testing.assert_array_equal(np.asarray(a["is_token"]), want & valid)
+    assert int(step.max()) <= ej.PARSE_MAX_STEP

@@ -1,9 +1,10 @@
-"""tpu-deflate: a TPU-native DEFLATE/gzip/zlib framework.
+"""tpu-deflate: a data-parallel DEFLATE/gzip/zlib framework.
 
 Full capability surface of the reference Java library (RFC 1951/1952/1950
 encode+decode, strategy system, error taxonomy, container metadata, CLI)
 re-architected for data-parallel execution: NumPy vector paths on host,
-JAX/Pallas kernels on TPU, and mesh-sharded pipelines for pod slices.
+JAX kernels (XLA) on the GPU, and mesh-sharded
+pipelines over several devices.
 
 One-shot convenience API below; streaming classes live in
 ``tpu_deflate.streams``; device pipelines in ``tpu_deflate.dist`` and

@@ -1,7 +1,7 @@
 """Member catalog: seekable decode and checkpoint/resume
 (SURVEY.md §5.4 build component).
 
-The TPU stream profile embeds a bgzf-style size subfield in every member
+The TD stream profile embeds a bgzf-style size subfield in every member
 header, so any profile stream doubles as its own index: a catalog maps
 uncompressed byte ranges to members without decoding anything. This
 enables:

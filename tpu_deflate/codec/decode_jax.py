@@ -20,10 +20,8 @@ Pieces here:
 - ``_decode_stored_member``: host memcpy of stored-block members.
 
 The round-1 bit-parallel device decode path that used to live here
-(speculative per-bit LUT decode + pointer-doubling LZ77 resolve) was
-superseded by ``decode_jax_v2`` (gather-free stages A-E) and
-``resolve_pallas`` (expand + one-hot-matmul pointer jumping) and has
-been removed.
+(speculative per-bit LUT decode) was superseded by ``decode_jax_v2``
+(stages A-E) and ``resolve_jax`` (LZ77 resolve) and has been removed.
 """
 
 from __future__ import annotations
@@ -43,7 +41,7 @@ from ..kernels import checksum as ck
 from ..kernels.huffman import validate_code_lengths
 
 DEV_LUT_BITS = 12  # device profile: all litlen/dist code lengths <= 12
-MEMBER_DATA = 64 * 1024  # uncompressed bytes per member in the TPU profile
+MEMBER_DATA = 64 * 1024  # uncompressed bytes per member in the TD profile
 LANE_BATCH = 64  # lanes per dispatch (bit-parallel arrays are ~8x payload)
 
 TD_SUBFIELD = b"TD"
@@ -416,12 +414,13 @@ def _decode_stored_member(buf: np.ndarray, m: MemberIndex, *, verify_crc: bool) 
         if bfinal:
             break
     result = np.concatenate(out) if out else np.zeros(0, np.uint8)
-    if result.size != m.isize:
-        raise DataFormatError(Reason.DECOMPRESSED_SIZE_MISMATCH, "Decompressed size mismatch")
+    # trailer checks in the host engine's order: CRC, then size
     if verify_crc and _fast_crc32(result) != m.crc32:
         raise DataFormatError(
             Reason.DECOMPRESSED_CHECKSUM_MISMATCH, "Decompression CRC-32 mismatch"
         )
+    if result.size != m.isize:
+        raise DataFormatError(Reason.DECOMPRESSED_SIZE_MISMATCH, "Decompressed size mismatch")
     return result
 
 

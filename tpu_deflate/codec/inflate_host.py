@@ -12,7 +12,7 @@ taxonomy and error precedence (``decomp/Open.java:83-890``):
 - `end_exactly` bookkeeping: whole-bytes-consumed accounting so container
   readers can continue parsing the trailer right after the payload.
 
-Every TPU decode path is differentially tested against this decoder.
+Every device decode path is differentially tested against this decoder.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""The TPU stream profile: standard gzip, shaped for data-parallel decode.
+"""The TD stream profile: standard gzip, shaped for data-parallel decode.
 
 A profile stream is a fully RFC 1952-compliant multi-member gzip file
 (readable by any gzip tool) with extra structure that makes it
@@ -14,7 +14,7 @@ O(members)-splittable and lane-decodable:
   decoder can use single-level 12-bit LUTs.
 
 ``profile_compress_host`` is the host reference implementation (used for
-tests and as fallback); the TPU encoder in ``encode_jax.py`` emits the
+tests and as fallback); the device encoder in ``encode_jax.py`` emits the
 same profile from device kernels.
 """
 
@@ -69,7 +69,7 @@ def profile_compress_host(
     lazy: bool = True,
     max_candidates: int = 16,
 ) -> bytes:
-    """Host implementation of the TPU profile encoder."""
+    """Host implementation of the TD profile encoder."""
     out = bytearray()
     n = len(data)
     buf = np.frombuffer(data, dtype=np.uint8)

@@ -41,8 +41,9 @@ class DecoderConfig:
     # device decode: members per batched device dispatch (consumed by
     # engine.decompress -> gzip_decompress_tpu_v2; capped at V2_LANE_BATCH)
     lane_batch: int = 256
-    # on-chip LZ77 resolve + CRC for single-block members ("auto" = TPU
-    # backends only; "on"/"off" force; TD_DEVICE_RESOLVE env overrides)
+    # on-device LZ77 resolve + CRC for single-block members ("auto" =
+    # where kernels.backend says so, the GPU; "on"/"off" force;
+    # TD_DEVICE_RESOLVE env overrides)
     device_resolve: str = "auto"
     # failure isolation (SURVEY.md §5.3): "raise" fails the job on the
     # first bad member; "skip" drops bad members and records them.
@@ -51,7 +52,7 @@ class DecoderConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Pod-slice topology (SURVEY.md §2.2)."""
+    """Device topology: hosts x devices per host (SURVEY.md §2.2)."""
 
     data_axis: str = "data"
     host_axis: str = "host"

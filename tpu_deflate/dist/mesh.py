@@ -1,11 +1,12 @@
 """Device mesh and topology management (SURVEY.md §2.2 build component).
 
-The reference has no distribution; the TPU framework scales by sharding
-the *member/lane* axis of the batched codec kernels over a
+The reference has no distribution; this framework scales by sharding the
+*member/lane* axis of the batched codec kernels over a
 ``jax.sharding.Mesh``. One logical axis (``data``) suffices for the codec
-(members are independent); a second axis (``host``) is kept for multi-host
-pod slices so collectives can be constrained to ICI within a host and DCN
-across hosts.
+(members are independent). The cards of one host all reach each other
+at the same rate, so the mesh follows the algorithm only; a second axis
+(``host``) is the multi-host layout, lanes sharding over the product of
+both axes.
 """
 
 from __future__ import annotations
@@ -33,8 +34,8 @@ def init_distributed(
     distributed runtime is (now) initialized. Idempotent.
 
     ≙ SURVEY.md §2.2/§5.8: the reference has no communication backend at
-    all; this is the DCN-side bring-up that makes ``make_pod_mesh``
-    meshes span hosts.
+    all; this is the bring-up that makes ``make_pod_mesh`` meshes span
+    hosts.
     """
     import os
 

@@ -14,7 +14,7 @@ in the hot path. Collectives appear exactly where the format needs them:
   host 0 concatenates in lane order.
 
 All functions take an explicit Mesh so tests can run them on the virtual
-8-device CPU mesh while production uses a pod slice.
+8-device CPU mesh while production uses the cards of a host.
 """
 
 from __future__ import annotations
@@ -55,7 +55,7 @@ def halo_exchange(
     shards: (D, S) uint8, lane d on device d. Returns (D, 32768 + S).
     Row 0's halo is the replicated preset dictionary when given (the
     zlib FDICT seam: the dictionary primes the stream head's window),
-    zeros otherwise. Ring ``ppermute`` over ICI (SURVEY.md §2.2c).
+    zeros otherwise. Ring ``ppermute`` (SURVEY.md §2.2c).
     """
     if preset_dict is None:
         preset_dict = jnp.zeros(WINDOW_SIZE, jnp.uint8)
@@ -214,7 +214,7 @@ def sharded_continuous_compress(
     32 KiB receptive field (``decomp/Open.java:201``,
     ``DeflaterOutputStream.java:38-45``) means adjacent shards share only
     a 32 KiB halo. The input lane-shards over the mesh, ``halo_exchange``
-    rings each shard's tail to its successor (ICI ppermute; shard 0 takes
+    rings each shard's tail to its successor (ppermute; shard 0 takes
     the broadcast preset dictionary when given), every shard's blocks are
     then encoded *in parallel* against their halo history, and the
     bit-streams splice into ONE member on host — Huffman bodies are
@@ -285,7 +285,7 @@ def sharded_analyze_emit(mesh: Mesh, axis: str | tuple = "data"):
 
     ``axis`` may be a tuple (e.g. ``("host", "data")`` on a pod mesh) to
     shard lanes over the product of both mesh axes — members then split
-    across hosts over DCN and across a host's chips over ICI.
+    across hosts and across each host's devices.
     """
     from ..codec import encode_jax as ej
 
@@ -319,37 +319,28 @@ def sharded_resolve(mesh: Mesh, axis: str = "data"):
     stage, ≙ ``decomp/Open.java:589-617``).
 
     Returns fn(tokens (L, N_POS) int32) -> (y, summary) with the lane
-    axis data-parallel over ``mesh[axis]``: each device runs the
-    expand + block-sweep pallas kernels on its lane shard — lanes are
-    independent members, so the stage needs zero communication and is
-    bit-exact with the single-device path (asserted in tests and
-    ``dryrun_multichip``). Stream-start lanes only (no tile tail
-    chaining across shards; a chained tile's tail is produced by the
-    same lane's previous call, which shards identically).
+    axis data-parallel over ``mesh[axis]``: each device resolves its own
+    lane shard with ``resolve_jax`` — lanes are independent members, so
+    the stage needs no communication and is bit-exact with the
+    single-device path. Stream-start lanes only (a chained tile's tail is
+    produced by the same lane's previous call, which shards identically).
     """
-    from ..codec import resolve_pallas as rp
+    from ..codec import resolve_jax as rp
 
-    interp = rp._interpret_default()
+    def body(tokens):
+        y, summ, _rounds, _unres = rp.resolve_tokens_device(tokens)
+        return y, summ
 
-    def body(tokens, tail):
-        y0, src, summ = rp._expand_jit(tokens, hist=0, interpret=interp)
-        y, st = rp._sweep_jit(tail, y0, src, interpret=interp)
-        return y, summ.at[:, 3].set(st[:, 0])
-
-    smapped = jax.shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(P(axis, None), P(axis, None)),
-        out_specs=(P(axis, None), P(axis, None)),
-        check_vma=False,  # pallas_call out_shapes carry no vma annotation
+    lane = P(axis, None)
+    return jax.jit(
+        jax.shard_map(
+            body,
+            mesh=mesh,
+            in_specs=lane,
+            out_specs=(lane, lane),
+            check_vma=False,  # the pointer-jumping loop ends per shard
+        )
     )
-
-    def fn(tokens):
-        L = tokens.shape[0]
-        tail = jnp.zeros((L, rp.TAIL_ROWS * 128), jnp.int32)
-        return smapped(jnp.asarray(tokens), tail)
-
-    return fn
 
 
 _SHARDED_DECODE_CACHE: dict = {}
@@ -358,13 +349,16 @@ _SHARDED_DECODE_CACHE: dict = {}
 def sharded_decode(mesh: Mesh, axis: str = "data"):
     """Mesh-sharded v2 decode runner (lane axis data-parallel).
 
-    Returns a callable mapping the v2 wave input dict to the 6-tuple
-    ``decode_jax_v2._run_wave_device`` returns, with every array's lane
-    axis sharded over ``mesh[axis]``. Lanes are independent members, so
-    XLA partitions all stages with zero communication; the host driver
-    (``decode_deflate_streams_v2``) pads the lane count to a multiple of
-    the mesh size via the runner's ``lane_multiple`` attribute. Cached
-    per (mesh, axis) so jit re-use survives across calls.
+    Returns a callable mapping the v2 wave input dict (host arrays) to the
+    7-tuple ``decode_jax_v2._run_wave_device`` returns. Each host array
+    goes straight to its lane shard, and every device runs the wave's
+    stages on its own shard under ``shard_map``, so no array is staged on
+    one device first; lanes are independent members,
+    so there is no communication until the host pulls the results. The
+    host driver (``decode_deflate_streams_v2``) pads the lane count to a
+    multiple of the mesh size via the runner's ``lane_multiple``
+    attribute. Cached per (mesh, axis) so jit re-use survives across
+    calls.
     """
     key = (mesh, axis)
     cached = _SHARDED_DECODE_CACHE.get(key)
@@ -373,26 +367,31 @@ def sharded_decode(mesh: Mesh, axis: str = "data"):
 
     from ..codec import decode_jax_v2 as v2
 
-    lane = NamedSharding(mesh, P(axis))
-    n = mesh.devices.size
-
     keys = v2.WAVE_KEYS
+    lane_spec = P(axis)
+    lane = NamedSharding(mesh, lane_spec)
 
-    @jax.jit
-    def run_tuple(*args):
-        return v2._run_wave_device(dict(zip(keys, args)))
+    def build(full_compact: bool):
+        def body(*args):
+            *rest, overflow = v2._run_wave_device(dict(zip(keys, args)), full_compact)
+            return (*rest, overflow[None])  # one overflow flag per shard
 
-    @jax.jit
-    def run_tuple_safe(*args):
-        return v2._run_wave_device(dict(zip(keys, args)), full_compact=True)
+        return jax.jit(
+            jax.shard_map(
+                body, mesh=mesh, in_specs=lane_spec, out_specs=lane_spec, check_vma=False
+            )
+        )
 
-    def _args(w: dict):
-        return tuple(jax.device_put(jnp.asarray(w[k]), lane) for k in keys)
+    run, run_safe = build(False), build(True)
+
+    def call(fn, w: dict):
+        *rest, overflow = fn(*(jax.device_put(w[k], lane) for k in keys))
+        return (*rest, jnp.any(overflow))
 
     def runner(w: dict):
-        return run_tuple(*_args(w))
+        return call(run, w)
 
-    runner.lane_multiple = n
-    runner.safe = lambda w: run_tuple_safe(*_args(w))
+    runner.lane_multiple = int(mesh.devices.size)
+    runner.safe = lambda w: call(run_safe, w)
     _SHARDED_DECODE_CACHE[key] = runner
     return runner

@@ -3,9 +3,7 @@
 - ``native``: C host runtime, member-parallel over host cores (fastest on
   this machine; the production host path).
 - ``tpu``: the JAX device kernels (bit-parallel decode, batched analyze
-  encode). The TPU-native compute path; on backends with slow dynamic
-  gathers (see decode_jax docstring) it is correctness-complete but not
-  the throughput choice.
+  encode) on the accelerator (the name is historical; ROADMAP D8).
 - ``host``: pure Python/NumPy reference implementations (always present).
 
 ``auto`` picks native when the compiler toolchain produced the extension,
@@ -126,7 +124,7 @@ def decompress(data: bytes, *, engine: str | None = None, config=None, mesh=None
     """Decompress gzip with the selected engine.
 
     ``mesh`` (a jax.sharding.Mesh; implies engine="tpu") shards the device
-    decode's lane axis data-parallel over the mesh — multi-chip decode
+    decode's lane axis data-parallel over the mesh — multi-device decode
     with bit-exact single-device semantics.
     """
     from .config import FrameworkConfig

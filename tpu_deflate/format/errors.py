@@ -1,11 +1,11 @@
-"""Error taxonomy for the TPU-native DEFLATE framework.
+"""Error taxonomy for the DEFLATE framework.
 
 Mirrors the complete 19-value ``Reason`` enum of the reference library
 (``/root/reference/src/io/nayuki/deflate/DataFormatException.java:61-83``):
 12 raw-DEFLATE reasons, 4 container reasons, and 3 gzip-header reasons.
 
 Every decode-side failure in this framework — whether raised by the host
-state machine or surfaced as an integer error code from a jitted TPU kernel
+state machine or surfaced as an integer error code from a jitted device kernel
 — maps onto exactly one of these reasons, so callers can switch on
 ``DataFormatError.reason`` the same way reference users switch on
 ``DataFormatException.getReason()``.
@@ -19,7 +19,7 @@ import enum
 class Reason(enum.IntEnum):
     """Why a DEFLATE/gzip/zlib stream was rejected.
 
-    The integer values double as device-side error codes: TPU kernels
+    The integer values double as device-side error codes: device kernels
     report failures as ``int32`` lanes holding ``reason + 1`` (0 = ok),
     which the host converts back through ``Reason(code - 1)``.
     """

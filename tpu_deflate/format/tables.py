@@ -1,7 +1,7 @@
 """RFC 1951 constant tables, built programmatically as NumPy arrays.
 
 These are the shared ground truth for every codec path in the framework —
-the host state machines, the NumPy vector paths, and the JAX/Pallas TPU
+the host state machines, the NumPy vector paths, and the JAX device
 kernels all index into the same arrays (kernels receive them as device
 constants).
 

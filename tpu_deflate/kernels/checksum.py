@@ -3,8 +3,8 @@
 The reference leans on ``java.util.zip.CRC32``/``Adler32`` as black boxes
 (``GzipOutputStream.java:25``, ``ZlibOutputStream.java:25``); this framework
 implements both checksums itself.  The host versions here are lane-parallel
-NumPy; the TPU versions (``checksum_jax.py``) express CRC-32 as GF(2)
-matrix-multiplies on the MXU and share the combine algebra defined here.
+NumPy; the device versions (``checksum_jax.py``) express CRC-32 as GF(2)
+matrix-multiplies and share the combine algebra defined here.
 
 Key algebraic fact used throughout: the CRC register update is affine over
 GF(2).  Processing message ``D`` starting from register ``i`` gives

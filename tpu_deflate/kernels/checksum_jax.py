@@ -1,4 +1,4 @@
-"""Device-side checksums: CRC-32 as GF(2) matrix algebra on the MXU.
+"""Device-side checksums: CRC-32 as GF(2) matrix algebra (matrix products).
 
 CRC-32 of a message is linear over GF(2) in the message bits:
 ``raw_register(D) = XOR_j M_pos(j) @ bits_j`` where the per-position
@@ -8,14 +8,15 @@ as *matmuls*:
 1. Split the (front-zero-padded) buffer into C-byte chunks; the raw CRC of
    chunk i is ``K @ bits_i`` with a single fixed 32x(8C) matrix K —
    batched over chunks this is one (num_chunks, 8C) @ (8C, 32) f32 matmul
-   on the MXU (0/1 entries; exact in f32 for C <= 2^21).
+   (0/1 entries; exact in f32 for C <= 2^21 at HIGHEST precision — a
+   TF32 product would round its operands).
 2. Combine chunk CRCs in a log-depth binary tree: at level l adjacent
    pairs merge as ``shift(left) XOR right`` where shift is the fixed 32x32
    matrix L^{8*C*2^l} — again matmuls.
 
 The combine algebra (matrices, conditioning) is shared with the host
 implementation in ``checksum.py``. The reference treats CRC32/Adler32 as
-JDK black boxes (SURVEY.md §2.4); here they are first-class TPU kernels.
+JDK black boxes (SURVEY.md §2.4); here they are first-class device kernels.
 
 Adler-32 is two masked reductions (sum and position-weighted sum) — pure
 VPU work.
@@ -42,6 +43,9 @@ from .checksum import (
 )
 
 CHUNK_BYTES = 512  # per-chunk matrix K is 32 x 4096
+# f32 products stay exact only without TF32 operand rounding (the sums
+# are < 2^24, the operands 0/1 or powers of two <= 2^15).
+_EXACT = jax.lax.Precision.HIGHEST
 
 
 @functools.lru_cache(maxsize=None)
@@ -88,19 +92,21 @@ def _bits_from_bytes(chunks: jnp.ndarray) -> jnp.ndarray:
 def _crc32_raw_device(chunks: jnp.ndarray, K: jnp.ndarray, lvl: jnp.ndarray, levels: int) -> jnp.ndarray:
     """chunks: (2^levels, C) uint8 -> scalar uint32 raw register."""
     bits = _bits_from_bytes(chunks)
-    # MXU: per-chunk raw CRCs as one matmul, mod 2.
-    crc_bits = jnp.dot(bits, K, preferred_element_type=jnp.float32)
+    # Per-chunk raw CRCs as one matmul, mod 2.
+    crc_bits = jnp.dot(bits, K, precision=_EXACT, preferred_element_type=jnp.float32)
     crc_bits = jnp.mod(crc_bits, 2.0)
     # Tree combine, all in bit-vector space.
     for l in range(levels):
         left = crc_bits[0::2]
         right = crc_bits[1::2]
-        shifted = jnp.mod(jnp.dot(left, lvl[l], preferred_element_type=jnp.float32), 2.0)
+        shifted = jnp.mod(
+            jnp.dot(left, lvl[l], precision=_EXACT, preferred_element_type=jnp.float32), 2.0
+        )
         crc_bits = jnp.mod(shifted + right, 2.0)  # XOR of 0/1 values
     weights = jnp.asarray((1 << np.arange(32)).astype(np.int64).view(np.uint64).astype(np.float64), dtype=jnp.float32)
     # Reconstruct uint32 from bits (exact: values < 2^32 via two halves).
-    lo = jnp.dot(crc_bits[0, :16], weights[:16], preferred_element_type=jnp.float32)
-    hi = jnp.dot(crc_bits[0, 16:], weights[:16], preferred_element_type=jnp.float32)
+    lo = jnp.dot(crc_bits[0, :16], weights[:16], precision=_EXACT, preferred_element_type=jnp.float32)
+    hi = jnp.dot(crc_bits[0, 16:], weights[:16], precision=_EXACT, preferred_element_type=jnp.float32)
     return lo.astype(jnp.uint32) | (hi.astype(jnp.uint32) << jnp.uint32(16))
 
 
@@ -142,22 +148,28 @@ def crc32_lanes_raw(chunks: jnp.ndarray, K: jnp.ndarray, lvl: jnp.ndarray) -> jn
     bits = (chunks[..., None] >> jnp.arange(8, dtype=jnp.uint8)) & 1
     bits = bits.reshape(lanes, n_chunks, 8 * c).astype(jnp.float32)
     crc_bits = jnp.mod(
-        jnp.einsum("lnb,bk->lnk", bits, K, preferred_element_type=jnp.float32), 2.0
+        jnp.einsum(
+            "lnb,bk->lnk", bits, K, precision=_EXACT, preferred_element_type=jnp.float32
+        ),
+        2.0,
     )
     level = 0
     while crc_bits.shape[1] > 1:
         left = crc_bits[:, 0::2]
         right = crc_bits[:, 1::2]
         shifted = jnp.mod(
-            jnp.einsum("lnk,km->lnm", left, lvl[level], preferred_element_type=jnp.float32),
+            jnp.einsum(
+                "lnk,km->lnm", left, lvl[level], precision=_EXACT,
+                preferred_element_type=jnp.float32,
+            ),
             2.0,
         )
         crc_bits = jnp.mod(shifted + right, 2.0)
         level += 1
     bits32 = crc_bits[:, 0, :]
     w16 = jnp.asarray((1 << np.arange(16)).astype(np.float32))
-    lo = jnp.dot(bits32[:, :16], w16, preferred_element_type=jnp.float32)
-    hi = jnp.dot(bits32[:, 16:], w16, preferred_element_type=jnp.float32)
+    lo = jnp.dot(bits32[:, :16], w16, precision=_EXACT, preferred_element_type=jnp.float32)
+    hi = jnp.dot(bits32[:, 16:], w16, precision=_EXACT, preferred_element_type=jnp.float32)
     return lo.astype(jnp.uint32) | (hi.astype(jnp.uint32) << jnp.uint32(16))
 
 

@@ -13,7 +13,7 @@ Decoder side:
   running out of internal-node capacity while descending -> UNDER_FULL;
   leftover open slots at the end -> UNDER_FULL.
 - :func:`build_decode_lut` — flat 2^15-entry (symbol, length) lookup table
-  keyed by the next 15 stream bits, the host/TPU shared decode structure
+  keyed by the next 15 stream bits, the host/device shared decode structure
   (generalizes the reference's 9-bit table + tree walk,
   ``decomp/Open.java:765-789``, to a single full-depth LUT).
 """

@@ -3,7 +3,7 @@
 The reference's matcher is a sequential exhaustive scan per position with
 greedy commit (``comp/Lz77Huffman.java:68-130``). That formulation is
 unusable on a vector machine, so this framework recasts LZ77 as three
-data-parallel stages — the same shape the TPU kernels use:
+data-parallel stages — the same shape the device kernels use:
 
 1. **Candidate generation**: hash the 4-byte window at every position;
    bucket-sort (stable) by (hash, position); each position's candidates are

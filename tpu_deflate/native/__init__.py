@@ -505,7 +505,7 @@ def _pool() -> ThreadPoolExecutor:
 def compress_members_native(
     data: bytes, *, member_data: int = 64 * 1024, max_code_len: int = 12, max_chain: int = 32
 ) -> bytes:
-    """TPU-profile multi-member gzip via the native core, all host cores."""
+    """TD-profile multi-member gzip via the native core, all host cores."""
     from ..codec.profile import _empty_member
 
     if not data:
